@@ -1,26 +1,28 @@
-"""clownresampler_tpu — a TPU-native windowed-sinc audio resampling framework.
+"""clownresampler_tpu — a windowed-sinc audio resampling framework in JAX.
 
 A ground-up JAX/XLA/Pallas re-design of the capabilities of
 Clownacy/clownresampler (a C89 streaming Lanczos resampler in 16.16 fixed
 point): bit-exact numerics, the full four-layer API surface, and batched
-multi-stream throughput on TPU.
+multi-stream throughput on an NVIDIA GPU.
 
 Layer map (mirrors SURVEY.md section 1):
   models/       filter models: Lanczos LUT generation (Precompute)
   configure     lowest-level ratio/stretching math (LowestLevel_Configure)
-  ops/          the convolution core: XLA oracle + fused Pallas kernel
-                (LowestLevel_Resample)
+  ops/          the convolution core: XLA oracle + the uniform-ratio launch
+                route (LowestLevel_Resample)
+  platform      backend check, staging defaults, compile cache
   lowlevel      phase-accumulator streaming over pre-padded input
                 (LowLevel_Init/Adjust/Resample)
   highlevel     buffered streaming with automatic edge padding
                 (HighLevel_Init/Resample/Adjust/ResampleEnd)
-  batch         batched multi-stream transcode (the TPU-native capability the
+  farm          chunked many-stream transcode farms (the capability the
                 scalar reference cannot express)
-  parallel/     device-mesh sharding of stream batches (DP over ICI)
+  batch         batched per-stream-state resampling
+  parallel/     device-mesh sharding of stream batches and farms
   utils/        PCM/WAV helpers
 """
 
-from clownresampler_tpu import fixedpoint
+from clownresampler_tpu import fixedpoint, platform
 from clownresampler_tpu.configure import MAXIMUM_CHANNELS, Configuration, configure
 from clownresampler_tpu.farm import MixedStreamFarm, UniformStreamFarm
 from clownresampler_tpu.highlevel import HighLevelResampler
@@ -30,7 +32,6 @@ from clownresampler_tpu.lowlevel import (
     resample_chunk,
     resample_scan,
     resample_scan_fused,
-    resample_scan_tiled,
 )
 from clownresampler_tpu.models import (
     DEFAULT_MODEL,
@@ -59,7 +60,6 @@ __all__ = [
     "resample_chunk",
     "resample_scan",
     "resample_scan_fused",
-    "resample_scan_tiled",
     "resample_array",
     "__version__",
 ]

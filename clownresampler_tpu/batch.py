@@ -1,7 +1,7 @@
-"""Batched multi-stream resampling — the TPU-native transcode farm.
+"""Batched multi-stream resampling with per-stream state.
 
-The reference processes one stream, one frame at a time. On TPU the natural
-unit is a *batch of independent streams* (SURVEY.md section 2: data parallelism
+The reference processes one stream, one frame at a time. On a device the
+natural unit is a *batch of independent streams* (SURVEY.md section 2: data parallelism
 over streams is the new capability the north star demands; streams share
 nothing, so there is no cross-stream communication to express). Each stream
 carries its own ratio/phase state, so a mixed-ratio farm is just a stacked

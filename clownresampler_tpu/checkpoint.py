@@ -5,7 +5,8 @@ exploits for transactional rollback (clownresampler.h:1186-1191) and which
 users exploit for save/restore. Here the equivalents are explicit: every
 stateful object serialises to a plain dict of ints/arrays (JSON- and
 npz-friendly) and restores exactly — resuming a stream mid-flight produces
-bit-identical continuation.
+bit-identical continuation. A snapshot's ``interpret`` key, which older
+versions wrote, is ignored on load.
 """
 
 from __future__ import annotations
@@ -99,19 +100,12 @@ def save_farm(farm: UniformStreamFarm) -> dict[str, Any]:
         "n_streams": farm.n_streams,
         "channels": farm.channels,
         "chunk_frames": farm.chunk_frames,
-        "interpret": farm.interpret,
         "position_integer": farm.position_integer,
         "position_fractional": farm.position_fractional,
         "increment": farm.increment,
         "config": _config_dict(farm.config),
         "radius_bound": farm._radius_bound,
-        # device staging is a tuple of independent lane-slice buffers;
-        # serialise as one full-width array (offsets are recomputed on load)
-        "staging": (
-            np.concatenate([np.asarray(s) for s in farm._staging], axis=1)
-            if isinstance(farm._staging, tuple)
-            else np.asarray(farm._staging).copy()
-        ),
+        "staging": np.array(farm._staging),
         "fill": farm._fill,
         "device_staging": farm._device_staging,
         "clamp_s16": farm.clamp_s16,
@@ -128,11 +122,8 @@ def load_farm(d: dict[str, Any], mesh=None) -> UniformStreamFarm:
     farm.n_streams = d["n_streams"]
     farm.channels = d["channels"]
     farm.chunk_frames = d["chunk_frames"]
-    farm.interpret = d["interpret"]
     farm.clamp_s16 = d.get("clamp_s16", False)
     farm.model = KernelModel(d["model_radius"], d["model_resolution"])
-    import jax.numpy as jnp
-
     farm._table = jnp.asarray(farm.model.table())
     farm.position_integer = d["position_integer"]
     farm.position_fractional = d["position_fractional"]
@@ -144,19 +135,7 @@ def load_farm(d: dict[str, Any], mesh=None) -> UniformStreamFarm:
     staging = np.array(d["staging"], dtype=np.int32)
     farm._capacity = staging.shape[0]
     farm._lanes = staging.shape[1]
-    from clownresampler_tpu.farm import compute_lane_slices
-
-    farm._lane_slices = compute_lane_slices(
-        farm._lanes, farm._max_taps, farm._capacity,
-        increment=farm.increment,
-    )
-    if farm._device_staging:
-        farm._staging = tuple(
-            jnp.asarray(np.ascontiguousarray(staging[:, off : off + w]))
-            for w, off in farm._lane_slices
-        )
-    else:
-        farm._staging = staging
+    farm._staging = jnp.asarray(staging) if farm._device_staging else staging
     farm._fill = d["fill"]
     farm._pending_slide = None
     if mesh is not None:
@@ -169,18 +148,15 @@ def load_farm(d: dict[str, Any], mesh=None) -> UniformStreamFarm:
         sh.__dict__.update(farm.__dict__)
         sh.mesh = mesh
         sh._dp = mesh.shape["dp"]
-        from clownresampler_tpu.farm import LANES as _LANES
-
-        if sh._lanes % (_LANES * sh._dp) != 0:
+        if sh._lanes % sh._dp != 0:
             raise ValueError(
-                f"snapshot has {sh._lanes} lanes, which does not tile the "
-                f"{sh._dp}-device dp axis into whole {_LANES}-lane kernel "
-                f"tiles; restore without a mesh or use a compatible mesh"
+                f"snapshot has {sh._lanes} lanes, which does not split into "
+                f"equal shards over the {sh._dp}-device dp axis; restore "
+                f"without a mesh or use a compatible mesh"
             )
-        sh._lane_slices = [(sh._lanes, 0)]
         sh._device_staging = True
         sh._sharding = NamedSharding(mesh, P(None, "dp"))
-        sh._staging = (jax.device_put(jnp.asarray(staging), sh._sharding),)
+        sh._staging = jax.device_put(jnp.asarray(staging), sh._sharding)
         sh._launch_cache = {}
         return sh
     return farm
@@ -194,7 +170,6 @@ def save_mixed_farm(farm) -> dict[str, Any]:
         "n_streams": farm.n_streams,
         "channels": farm.channels,
         "chunk_frames": farm.chunk_frames,
-        "interpret": farm.interpret,
         "max_radius": farm.max_radius,
         "clamp_s16": farm.clamp_s16,
         "model_radius": farm.model.radius,
@@ -224,7 +199,6 @@ def load_mixed_farm(d: dict[str, Any], mesh=None):
     farm.n_streams = d["n_streams"]
     farm.channels = d["channels"]
     farm.chunk_frames = d["chunk_frames"]
-    farm.interpret = d["interpret"]
     farm.max_radius = d["max_radius"]
     farm.clamp_s16 = d.get("clamp_s16", False)
     farm.model = KernelModel(d["model_radius"], d["model_resolution"])

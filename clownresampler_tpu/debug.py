@@ -1,8 +1,8 @@
-"""Debug-mode invariant checking — the TPU analogue of CLOWNRESAMPLER_ASSERT.
+"""Debug-mode invariant checking — the device analogue of CLOWNRESAMPLER_ASSERT.
 
 The reference guards its hot loop with assertions (clownresampler.h:865-868):
 kernel-domain bounds (903), the radius-delta invariant (980), window bounds
-(1003-1004), and the critical LUT-index range check (1012). Inside jitted TPU
+(1003-1004), and the critical LUT-index range check (1012). Inside jitted device
 code there is no assert; this module provides a checked re-run of a launch's
 index math that validates the same invariants on the host, for tests and for
 debugging data-dependent issues in production pipelines.

@@ -4,7 +4,7 @@ The reference library (clownresampler.h:615-625) works in 16.16 fixed point
 with C integer division, which truncates toward zero — unlike jnp's ``//``
 which floors. Everything here reproduces the C results bit-exactly while using
 only int32 device arithmetic, so the kernels never need x64 mode or emulated
-int64 on TPU (TPU VPU lanes are 32-bit; int64 ops lower to slow multi-op
+int64 (device vector lanes are 32-bit; int64 ops lower to multi-op
 sequences).
 
 Host-side bookkeeping (stream positions, frame counts) uses arbitrary-precision
@@ -120,9 +120,7 @@ def reciprocal_q31(denom):
     Requires |denom| >= 2 so the quotient fits int32; every realisable kernel
     window sum satisfies this (it is ~65536 * kernel_scale).
 
-    Integer division lowers to a long scalar sequence on TPU (measured ~6x
-    the cost of this formulation at 8k lanes, benchmarks/RESULTS.md), so the
-    exact quotient is built float-first: a float32 estimate, two Newton
+    The exact quotient is built float-first: a float32 estimate, two Newton
     residual corrections, then a +-3 integer cleanup. Exactness argument:
     the estimate's absolute error is err <= q*2^-22 + 1 (q <= 2^30, so up
     to 257 in the small-m extreme); the residual r = 2^31 - q*m is computed
@@ -132,9 +130,10 @@ def reciprocal_q31(denom):
     stays bounded by ~2^9); each correction divides the error by ~2^22, and
     the final where-steps absorb the last +-3 even if the hardware's f32
     divide is a couple of ulps off correctly-rounded.
-    Verified exhaustively over m in [2, 2^28] against the integer-division
-    formulation on TPU (tools/verify_reciprocal.py) and against int64
-    division in tests/test_fixedpoint.py.
+    Verified exhaustively over m in [2, 2^28] against integer division on
+    the GPU (chip_smoke.py, phase "reciprocal"; its time against plain
+    division is in PERF.md) and against int64 division in
+    tests/test_fixedpoint.py.
     """
     m = jnp.abs(denom)
     m_safe = jnp.maximum(m, 2)  # avoid div-by-zero traps; C would UB anyway

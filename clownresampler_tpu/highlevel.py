@@ -25,6 +25,7 @@ from typing import Callable, Optional
 
 import numpy as np
 
+from clownresampler_tpu import platform
 from clownresampler_tpu.configure import MAXIMUM_CHANNELS
 from clownresampler_tpu.lowlevel import LowLevelResampler
 from clownresampler_tpu.models import DEFAULT_MODEL, KernelModel
@@ -58,20 +59,17 @@ class HighLevelResampler:
         low_pass_rate: int,
         model: KernelModel = DEFAULT_MODEL,
         buffer_total_samples: int = BUFFER_TOTAL_SAMPLES,
-        interpret: bool = False,
     ) -> Optional["HighLevelResampler"]:
         """ClownResampler_HighLevel_Init (1101-1118). None on failure.
 
         ``buffer_total_samples`` lifts the reference's fixed 0x1000 staging
         buffer (TODO-noted there as should-be-dynamic, clownresampler.h:654)
         into a parameter; the default reproduces the C geometry exactly.
-        ``interpret`` is the CPU-test knob threaded to the low-level kernel
-        dispatch (LowLevelResampler.interpret).
         """
         if channels > MAXIMUM_CHANNELS:
             return None
         low = LowLevelResampler.init(channels, input_rate, output_rate,
-                                     low_pass_rate, model, interpret=interpret)
+                                     low_pass_rate, model)
         if low is None:
             return None
         radius = low.config.integer_stretched_kernel_radius
@@ -241,14 +239,13 @@ class HighLevelResampler:
         contract, so it is only taken from a pristine resampler (nothing
         primed or buffered yet) and leaves the internal buffer cursors in a
         generic post-flush state rather than the host loop's exact final
-        geometry. ``bulk=None`` auto-selects it on TPU; the host loop
-        quietly serves the cases the bulk path declines (non-pristine
-        state, empty streams, streams past the device-memory cap).
+        geometry. ``bulk=None`` selects it on the accelerator
+        (platform.on_accelerator); the host loop serves the cases the bulk
+        path declines (non-pristine state, empty streams, streams past the
+        host working-set cap).
         """
         if bulk is None:
-            import jax
-
-            bulk = jax.default_backend() == "tpu"
+            bulk = platform.on_accelerator()
         if bulk and self._is_pristine():
             # falls back to the host loop (None) for empty or over-long
             # streams — same bytes either way; frames the bulk path already
@@ -275,15 +272,13 @@ class HighLevelResampler:
             and ll.position_fractional == 0
         )
 
-    # Total device-traffic budget for one bulk invocation. Device RESIDENCY
-    # is already bounded by the low-level dispatch
+    # Host working-set cap for one bulk invocation: the drained input, its
+    # padded copy and the int32 output all sit in host memory at once.
+    # Device residency is bounded separately by the low-level dispatch
     # (LowLevelResampler.BATCH_DEVICE_BUDGET_BYTES: over-budget streams run
-    # as several sequential upload->launch->download cycles), so this cap
-    # only bounds the cycle count (a handful of transfer/execute turnarounds
-    # per call keeps the relay well clear of the documented interleaving
-    # degradation) and the host-side working set; streams past it take the
-    # host chunk loop.
-    BULK_MAX_DEVICE_BYTES = 16 << 30
+    # as several sequential upload->launch->download cycles). Streams past
+    # it take the host chunk loop.
+    BULK_MAX_HOST_BYTES = 16 << 30
 
     def _resample_stream_bulk(
         self, input_callback: InputCallback, n_in: int = 2048,
@@ -297,21 +292,16 @@ class HighLevelResampler:
         path emits for an N-frame stream with automatic edge padding
         (== LowLevel over a radius-padded buffer, SURVEY.md section 4
         finding 1). LowLevel's batched tile dispatch
-        (lowlevel._compute_frames_batched) then launches the tiles fused
-        TILE_LAUNCH_GROUP per device program (amortizing the flat dispatch
-        floor), so the whole stream runs at batch-mode throughput —
-        including kernels past the fast-path width guard, which the old
-        fused-scan bulk path had to decline (its engines were VMEM-resident
-        only).
+        (LowLevelResampler._compute_frames) then launches the tiles fused
+        TILE_LAUNCH_GROUP per device program, so the whole stream runs at
+        batch-mode throughput for every ratio class.
 
         Returns (out, replay_callback). ``out`` is None when the bulk path
-        declines (empty streams, streams past the device budget);
+        declines (empty streams, streams past the host cap);
         ``replay_callback`` then serves any already-drained frames before
         delegating to the original callback, so the host loop can take over
         with no data loss.
         """
-        import jax
-
         pieces: list = []
 
         def replay_callback(total_frames: int) -> np.ndarray:
@@ -330,11 +320,11 @@ class HighLevelResampler:
         ch = self.channels
         inc = ll.increment
 
-        # device bytes per input frame: the int16 window uploads (x2 covers
-        # the power-of-two row buckets and tile-halo duplication) plus the
-        # ch-lane int32 output at the output/input frame ratio
-        per_frame = 4 * ch + ((4 * ch) << 16) // max(inc, 1) + 4 * ch + 1
-        max_frames = self.BULK_MAX_DEVICE_BYTES // per_frame
+        # host bytes per input frame: the drained int16 pieces and their
+        # padded copy, plus the ch-lane int32 output at the output/input
+        # frame ratio
+        per_frame = 4 * ch + ((4 * ch) << 16) // max(inc, 1) + 1
+        max_frames = self.BULK_MAX_HOST_BYTES // per_frame
         n = 0
         while n <= max_frames:
             got = np.asarray(input_callback(n_in))
@@ -349,16 +339,7 @@ class HighLevelResampler:
         padded = np.zeros((n + 2 * r, ch), np.int16)
         padded[r : r + n] = np.concatenate(pieces, axis=0)
 
-        # On non-TPU backends an explicit bulk=True still runs the device
-        # dispatch (interpreted), as the fused-scan path did — the host
-        # oracle is reached via bulk=False.
-        interp_prev = ll.interpret
-        if jax.default_backend() != "tpu":
-            ll.interpret = True
-        try:
-            _, _, out = ll.resample(padded, n)
-        finally:
-            ll.interpret = interp_prev
+        _, _, out = ll.resample(padded, n)
         # Post-stream bookkeeping, C-EXACT (so incremental streaming may
         # resume on this object and stay byte-identical to the host loop,
         # tests/test_highlevel.py::test_bulk_then_incremental_resume):

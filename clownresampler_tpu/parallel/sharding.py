@@ -1,10 +1,10 @@
-"""Device-mesh sharding: scale the stream farm over ICI.
+"""Device-mesh sharding: scale the stream farm over several devices.
 
 Two parallel axes (SURVEY.md section 2: the reference has no distributed
-anything; these are TPU-native capabilities layered on the batch API):
+anything; these are device-mesh capabilities layered on the batch API):
 
 * ``dp`` — data parallel over independent streams. Streams share nothing, so
-  this is pure batch sharding: zero collectives, scales linearly over ICI.
+  this is pure batch sharding: zero collectives.
 
 * ``sp`` — sequence parallel over output frames *within* a stream. The phase
   accumulator is closed-form (t(n) = f0 + n*increment), so shard i can start
@@ -94,7 +94,7 @@ def sharded_resample_batch(
         out, produced = jax.vmap(one_stream)(x, n_in, state, quota)
 
         # The only cross-shard exchange in the whole framework: sum the
-        # per-shard frame counts over sp (a scalar per stream, rides ICI).
+        # per-shard frame counts over sp (a scalar per stream).
         # Everything else is recomputed locally from the closed-form phase —
         # identically on every sp shard, so the bookkeeping outputs are
         # replicated by construction.
@@ -151,25 +151,19 @@ def sharded_uniform_resample(
     *,
     max_taps: int,
     n_out: int,
-    d: int,
-    cand: int,
-    interpret: bool = False,
 ):
-    """Multi-chip fast path: shard the lane (stream x channel) axis over dp.
+    """Multi-device uniform launch: shard the lane (stream x channel) axis
+    over dp.
 
-    Streams share nothing, so this is pure data parallelism: each chip runs
-    the fused tiled kernel (ops/pallas_resample.py) on its lane slice with the
-    replicated scalar state and LUT — zero collectives, linear ICI scaling.
-    Returns (n_out, L) int32 sharded the same way as the input.
+    Streams share nothing, so this is pure data parallelism: each device runs
+    the lanes route (ops/resample.py) on its lane shard with the replicated
+    scalar state and LUT — zero collectives. Returns (n_out, L) int32 sharded
+    the same way as the input.
     """
-    from clownresampler_tpu.ops.pallas_resample import resample_uniform_lanes_tiled
+    from clownresampler_tpu.ops.resample import resample_lanes
 
     def per_shard(table, x_local, st):
-        out, _rows = resample_uniform_lanes_tiled(
-            table, x_local, st,
-            max_taps=max_taps, n_out=n_out, d=d, cand=cand, interpret=interpret,
-        )
-        return out
+        return resample_lanes(table, x_local, st, max_taps=max_taps, n_out=n_out)
 
     specs_in = (
         P(),

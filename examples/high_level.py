@@ -14,13 +14,14 @@ sys.path.insert(0, ".")
 
 import numpy as np
 
-from clownresampler_tpu import HighLevelResampler
+from clownresampler_tpu import HighLevelResampler, platform
 from clownresampler_tpu.utils.audio_io import clamp_s16, read_wav, write_wav
 
 CHUNK = 2048  # frames per input-callback delivery
 
 
 def main() -> None:
+    platform.enable_compile_cache()
     in_path, out_path, out_rate = sys.argv[1], sys.argv[2], int(sys.argv[3])
     frames, in_rate = read_wav(in_path)
     lpf = int(sys.argv[4]) if len(sys.argv) > 4 else out_rate

@@ -13,11 +13,12 @@ import sys
 
 sys.path.insert(0, ".")
 
-from clownresampler_tpu import resample_array
+from clownresampler_tpu import platform, resample_array
 from clownresampler_tpu.utils.audio_io import clamp_s16, read_wav, write_wav
 
 
 def main() -> None:
+    platform.enable_compile_cache()
     in_path, out_path, out_rate = sys.argv[1], sys.argv[2], int(sys.argv[3])
     frames, in_rate = read_wav(in_path)
     lpf = int(sys.argv[4]) if len(sys.argv) > 4 else out_rate

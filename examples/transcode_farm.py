@@ -1,9 +1,9 @@
 #!/usr/bin/env python3
-"""Batched transcode farm: N copies of a file through the fused TPU kernel.
+"""Batched transcode farm: N copies of a file through one device launch.
 
-The TPU-native capability the scalar reference has no analogue for: thousands
-of independent streams resampled in parallel as vector lanes (BASELINE.json
-config 5 shape).
+The capability the scalar reference has no analogue for: thousands of
+independent streams resampled in parallel as lanes of one launch
+(BASELINE.json config 5 shape).
 
 Usage: python examples/transcode_farm.py in.wav out_rate [n_streams]
 """
@@ -15,13 +15,14 @@ sys.path.insert(0, ".")
 
 import numpy as np
 
-from clownresampler_tpu import UniformStreamFarm
+from clownresampler_tpu import UniformStreamFarm, platform
 from clownresampler_tpu.utils.audio_io import read_wav
 
 CHUNK = 4096
 
 
 def main() -> None:
+    platform.enable_compile_cache()
     in_path, out_rate = sys.argv[1], int(sys.argv[2])
     n_streams = int(sys.argv[3]) if len(sys.argv) > 3 else 256
     frames, in_rate = read_wav(in_path)

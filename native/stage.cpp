@@ -1,6 +1,6 @@
-// Native staging engine: host-side data plane for the TPU transcode farm.
+// Native staging engine: host-side data plane for the transcode farm.
 //
-// The TPU kernels want lane-major int32 buffers (rows = input frames, lanes =
+// The device launches want lane-major int32 buffers (rows = input frames, lanes =
 // stream x channel), while audio arrives stream-major interleaved s16 — the
 // same impedance the reference's high-level layer solves with its staging
 // buffer + memmove halo (clownresampler.h:1143-1154), scaled to thousands of

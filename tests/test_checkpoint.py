@@ -68,7 +68,7 @@ def test_highlevel_roundtrip_continues():
 def test_farm_roundtrip_continues():
     rng = np.random.default_rng(2)
     data = rng.integers(-32768, 32768, size=(3, 600, 2)).astype(np.int16)
-    a = UniformStreamFarm(3, 2, 48000, 44100, chunk_frames=256, interpret=True)
+    a = UniformStreamFarm(3, 2, 48000, 44100, chunk_frames=256)
     a.process(data[:, :256])
     b = load_farm(save_farm(a))
     out_a = [a.process(data[:, 256:512]), a.process(data[:, 512:]), a.flush()]
@@ -109,7 +109,7 @@ def test_mixed_farm_checkpoint_resume():
     data = [rng.integers(-32768, 32768, size=(3 * chunk, ch)).astype(np.int16)
             for _ in specs]
 
-    a = MixedStreamFarm(specs, ch, chunk_frames=chunk, interpret=True, max_radius=8)
+    a = MixedStreamFarm(specs, ch, chunk_frames=chunk, max_radius=8)
     a.process([d[:chunk] for d in data])
     assert a.adjust_stream(1, 96000, 48000)
 
@@ -139,8 +139,7 @@ def test_sharded_mixed_farm_checkpoint_resume():
     specs = [(48000, 44100)] * 512 + [(96000, 48000)] * 512
     data = [rng.integers(-32768, 32768, size=(2 * chunk, ch)).astype(np.int16)
             for _ in specs]
-    a = ShardedMixedStreamFarm(mesh, specs, ch, chunk_frames=chunk,
-                               interpret=True, max_radius=8)
+    a = ShardedMixedStreamFarm(mesh, specs, ch, chunk_frames=chunk, max_radius=8)
     a.process([d[:chunk] for d in data])
     assert a.adjust_stream(0, 32000, 48000)
     snap = save_mixed_farm(a)
@@ -172,13 +171,12 @@ def test_sharded_farm_checkpoint_resume():
     chunks = [rng.integers(-32768, 32768, (n_streams, chunk, ch)).astype(np.int16)
               for _ in range(2)]
     a = ShardedStreamFarm(mesh, n_streams, ch, 48000, 44100,
-                          chunk_frames=chunk, interpret=True)
+                          chunk_frames=chunk)
     a.process(chunks[0])
     snap = save_farm(a)
     b = load_farm(snap, mesh=mesh)
     assert isinstance(b, ShardedStreamFarm)
     c = load_farm(snap)  # plain single-device restore of the same snapshot
-    c.interpret = True
     c._device_staging = False
     c._staging = np.array(snap["staging"], dtype=np.int32)
     ra = np.concatenate([a.process(chunks[1]), a.flush()], axis=1)
@@ -186,3 +184,25 @@ def test_sharded_farm_checkpoint_resume():
     rc = np.concatenate([c.process(chunks[1]), c.flush()], axis=1)
     np.testing.assert_array_equal(rb, ra)
     np.testing.assert_array_equal(rc, ra)
+
+
+def test_farm_snapshot_with_interpret_key_loads():
+    """Snapshots carrying the ``interpret`` key that older versions wrote
+    still load and continue bit-identically; new snapshots do not carry
+    it."""
+    import numpy as np
+
+    from clownresampler_tpu.checkpoint import load_farm, save_farm
+    from clownresampler_tpu.farm import UniformStreamFarm
+
+    rng = np.random.default_rng(59)
+    chunks = [rng.integers(-32768, 32768, (3, 256, 2)).astype(np.int16)
+              for _ in range(2)]
+    a = UniformStreamFarm(3, 2, 48000, 44100, chunk_frames=256)
+    a.process(chunks[0])
+    snap = save_farm(a)
+    assert "interpret" not in snap
+    b = load_farm(dict(snap, interpret=True))
+    ra = np.concatenate([a.process(chunks[1]), a.flush()], axis=1)
+    rb = np.concatenate([b.process(chunks[1]), b.flush()], axis=1)
+    np.testing.assert_array_equal(rb, ra)

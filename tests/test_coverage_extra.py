@@ -1,4 +1,4 @@
-"""Cross-cutting coverage: non-default models through the fast kernels,
+"""Cross-cutting coverage: non-default models through the launch route,
 the scan pipeline on the golden fixture, max-channel farms."""
 
 import jax.numpy as jnp
@@ -10,15 +10,12 @@ from clownresampler_tpu.farm import UniformStreamFarm
 from clownresampler_tpu.lowlevel import make_device_state, resample_scan
 from clownresampler_tpu.models import HIGH_QUALITY_MODEL
 from clownresampler_tpu.ops.convolve import convolve_frames
-from clownresampler_tpu.ops.pallas_resample import (
-    plan_uniform,
-    resample_uniform_lanes_tiled,
-)
+from clownresampler_tpu.ops.resample import resample_lanes
 from tests import oracle
 
 
 def test_tiled_kernel_high_quality_model():
-    """radius-10 model through the tiled Pallas kernel (24 taps, d=1)."""
+    """radius-10 model through the lanes route (24 taps, d=1)."""
     model = HIGH_QUALITY_MODEL
     table = jnp.asarray(model.table())
     cfg = configure(48000, 44100, 44100, radius=model.radius, resolution=model.resolution)
@@ -30,11 +27,7 @@ def test_tiled_kernel_high_quality_model():
     s = ((n_out * inc) >> 16) + 2 * cfg.integer_stretched_kernel_radius + 96
     s = -(-s // 16) * 16
     x = jnp.asarray(rng.integers(-32768, 32768, size=(s, 128)).astype(np.int32))
-    plan = plan_uniform(inc, n_out)
-    got, _ = resample_uniform_lanes_tiled(
-        table, x, state, max_taps=max_taps, n_out=n_out,
-        d=plan["d"], cand=plan["cand"], interpret=True,
-    )
+    got = resample_lanes(table, x, state, max_taps=max_taps, n_out=n_out)
     n = jnp.arange(n_out, dtype=jnp.int32)
     pos, frac = fx.positions_from_state(
         state.position_integer, state.position_fractional,
@@ -77,7 +70,7 @@ def test_farm_sixteen_channels():
     rng = np.random.default_rng(9)
     b, ch, total = 2, 16, 300
     data = rng.integers(-32768, 32768, size=(b, total, ch)).astype(np.int16)
-    farm = UniformStreamFarm(b, ch, 32000, 48000, 48000, chunk_frames=128, interpret=True)
+    farm = UniformStreamFarm(b, ch, 32000, 48000, 48000, chunk_frames=128)
     outs = []
     for off in range(0, total, 128):
         outs.append(farm.process(data[:, off : off + 128]))

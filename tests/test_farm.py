@@ -1,9 +1,9 @@
 """Transcode farm: per-stream bit-exactness against the host low-level path.
 
-Each stream pushed through UniformStreamFarm (chunked, Pallas/strided/oracle
-dispatch, native staging) must produce exactly what the reference produces for
-that stream's whole input (the host LowLevelResampler is already proven
-bit-exact against the C oracle).
+Each stream pushed through UniformStreamFarm (chunked, every ratio class,
+native or device staging) must produce exactly what the reference produces
+for that stream's whole input, computed by the ops.convolve oracle
+(tests/oracle.py).
 """
 
 import numpy as np
@@ -11,24 +11,19 @@ import pytest
 
 from clownresampler_tpu.farm import UniformStreamFarm
 from clownresampler_tpu.lowlevel import LowLevelResampler
+from tests import oracle
 
 RATIOS = [
-    (48000, 44100),   # tiled d=1
-    (8000, 44100),    # tiled d=0
-    (96000, 48000),   # strided d=2
-    (44100, 8000),    # oracle (d=5, lo != 0)
+    (48000, 44100),   # near class, d=1
+    (8000, 44100),    # near class, d=0
+    (96000, 48000),   # exact stride d=2
+    (44100, 8000),    # general (d=5, lo != 0)
     (44100, 44100),   # unity
 ]
 
 
 def _host_reference(data, channels, in_rate, out_rate, lpf):
-    rs = LowLevelResampler.init(channels, in_rate, out_rate, lpf)
-    r = rs.config.integer_stretched_kernel_radius
-    padded = np.concatenate(
-        [np.zeros((r, channels), np.int16), data, np.zeros((r, channels), np.int16)]
-    )
-    _, _, frames = rs.resample(padded, data.shape[0])
-    return frames
+    return oracle.convolve_stream(data, in_rate, out_rate, lpf)
 
 
 @pytest.mark.parametrize("in_rate,out_rate", RATIOS)
@@ -39,7 +34,7 @@ def test_farm_matches_host(in_rate, out_rate):
     data = rng.integers(-32768, 32768, size=(b, total, ch)).astype(np.int16)
 
     farm = UniformStreamFarm(
-        b, ch, in_rate, out_rate, lpf, chunk_frames=256, interpret=True
+        b, ch, in_rate, out_rate, lpf, chunk_frames=256
     )
     outs = []
     cursor = 0
@@ -66,7 +61,7 @@ def test_farm_pitch_bend_matches_host():
 
     farm = UniformStreamFarm(
         b, ch, rates[0][0], rates[0][1], 44100, chunk_frames=256,
-        max_radius=6, interpret=True,
+        max_radius=6,
     )
     outs = []
     cursor = 0
@@ -117,7 +112,7 @@ def test_farm_pitch_bend_matches_host():
 
 
 def test_farm_rejects_bad_adjust():
-    farm = UniformStreamFarm(2, 2, 44100, 44100, 44100, chunk_frames=128, interpret=True)
+    farm = UniformStreamFarm(2, 2, 44100, 44100, 44100, chunk_frames=128)
     assert not farm.adjust(192000, 8000)      # radius beyond bound
     assert farm.adjust(44100, 48000)          # fine
 
@@ -130,7 +125,7 @@ def test_mixed_farm_matches_host():
     specs = [(48000, 44100), (8000, 44100), (48000, 44100), (96000, 48000)]
     data = [rng.integers(-32768, 32768, size=(total, ch)).astype(np.int16) for _ in specs]
 
-    farm = MixedStreamFarm(specs, ch, chunk_frames=256, interpret=True)
+    farm = MixedStreamFarm(specs, ch, chunk_frames=256)
     outs = [[] for _ in specs]
     for off in (0, 256):
         res = farm.process([d[off : off + 256] for d in data])
@@ -145,14 +140,20 @@ def test_mixed_farm_matches_host():
         np.testing.assert_array_equal(got, want, err_msg=f"stream {i}")
 
 
-def test_farm_strided_extreme_downsample():
-    """Review regression: strided path with d=4 must fit staging capacity
-    (previously crashed with a slice past the staging buffer)."""
+@pytest.mark.parametrize("in_rate,out_rate", [
+    (192000, 48000),   # d=4
+    (96000, 480),      # d=200, 1200 taps: a wide exact stride
+])
+def test_farm_strided_extreme_downsample(in_rate, out_rate):
+    """Exact integer strides far from unity fit the staging capacity and
+    match the oracle (a d=4 farm once sliced past its staging buffer)."""
     rng = np.random.default_rng(41)
-    data = rng.integers(-32768, 32768, size=(1, 256, 1)).astype(np.int16)
-    farm = UniformStreamFarm(1, 1, 192000, 48000, chunk_frames=256, interpret=True)
-    out = np.concatenate([farm.process(data), farm.flush()], axis=1)
-    want = _host_reference(data[0], 1, 192000, 48000, 192000)
+    data = rng.integers(-32768, 32768, size=(1, 2048, 1)).astype(np.int16)
+    farm = UniformStreamFarm(1, 1, in_rate, out_rate, chunk_frames=512)
+    outs = [farm.process(data[:, lo : lo + 512]) for lo in range(0, 2048, 512)]
+    out = np.concatenate(outs + [farm.flush()], axis=1)
+    want = _host_reference(data[0], 1, in_rate, out_rate, in_rate)
+    assert want.shape[0] > 0
     np.testing.assert_array_equal(out[0], want)
 
 
@@ -161,14 +162,13 @@ def test_farm_launch_tiling_matches_host(monkeypatch):
 
     Cheap multi-tile exercise: force tiny tiles so one process() crosses many
     sub-launch boundaries (host-side p0/f0 re-derivation between tiles)."""
-    from clownresampler_tpu import farm as farm_mod
+    from clownresampler_tpu.ops import resample as ops
 
-    monkeypatch.setattr(farm_mod, "MAX_LAUNCH_OUTPUT_FRAMES", 64)
+    monkeypatch.setattr(ops, "MAX_LAUNCH_FRAMES", 64)
     rng = np.random.default_rng(13)
     for in_rate, out_rate in [(44100, 48000), (8000, 44100), (96000, 48000)]:
         data = rng.integers(-32768, 32768, size=(2, 500, 2)).astype(np.int16)
-        farm = UniformStreamFarm(2, 2, in_rate, out_rate, chunk_frames=512,
-                                 interpret=True)
+        farm = UniformStreamFarm(2, 2, in_rate, out_rate, chunk_frames=512)
         got = np.concatenate([farm.process(data), farm.flush()], axis=1)
         for i in range(2):
             want = _host_reference(data[i], 2, in_rate, out_rate,
@@ -178,20 +178,23 @@ def test_farm_launch_tiling_matches_host(monkeypatch):
 
 
 def test_farm_lane_split_matches_host(monkeypatch):
-    """Wide fleets split into lane-sliced sub-launches (zero-copy column
-    slices in one fused program); output must be identical to unsplit."""
-    from clownresampler_tpu import farm as farm_mod
+    """A wide fleet whose lanes-route window gather would pass
+    WINDOW_GATHER_BYTES splits each emit into several launches of fewer
+    frames (odd lane count, no lane padding); output must be identical."""
+    from clownresampler_tpu.ops import resample as ops
 
-    monkeypatch.setattr(farm_mod, "LANE_SPLIT", 128)
+    monkeypatch.setattr(ops, "WINDOW_GATHER_BYTES", 8 * 8 * 194 * 4 * 5)
     rng = np.random.default_rng(23)
-    b, ch, total = 96, 2, 300                 # 192 lanes -> 2 splits of 128
+    b, ch, total = 97, 2, 300                 # 194 lanes -> 40-frame launches
     data = rng.integers(-32768, 32768, size=(b, total, ch)).astype(np.int16)
-    farm = UniformStreamFarm(b, ch, 48000, 44100, chunk_frames=256, interpret=True)
+    farm = UniformStreamFarm(b, ch, 48000, 44100, chunk_frames=256)
+    assert farm._lanes == 194
+    assert len(farm._launch_specs(200)) == 5
     got = np.concatenate(
         [farm.process(data[:, :256]), farm.process(data[:, 256:]), farm.flush()],
         axis=1,
     )
-    for i in (0, 63, 95):
+    for i in (0, 63, 96):
         want = _host_reference(data[i], ch, 48000, 44100, 48000)
         np.testing.assert_array_equal(got[i], want, err_msg=f"stream {i}")
 
@@ -204,7 +207,7 @@ def test_farm_large_chunk_int32_safe():
     rng = np.random.default_rng(17)
     n = 36000
     data = rng.integers(-32768, 32768, size=(1, n, 1)).astype(np.int16)
-    farm = UniformStreamFarm(1, 1, 44100, 48000, chunk_frames=n, interpret=True)
+    farm = UniformStreamFarm(1, 1, 44100, 48000, chunk_frames=n)
     got = np.concatenate([farm.process(data), farm.flush()], axis=1)
     want = _host_reference(data[0], 1, 44100, 48000, 48000)
     np.testing.assert_array_equal(got[0], want)
@@ -220,7 +223,7 @@ def test_farm_device_staging_matches_host_staging():
     for dev in (False, True):
         farm = UniformStreamFarm(
             b, ch, 44100, 48000, 48000, chunk_frames=256,
-            interpret=True, device_staging=dev,
+            device_staging=dev,
         )
         parts = []
         for off in (0, 256, 512):
@@ -234,13 +237,13 @@ def test_farm_device_staging_matches_host_staging():
 
 
 def test_farm_clamp_s16_output():
-    """clamp_s16 farms emit int16 == clipped wide output, every kernel class."""
+    """clamp_s16 farms emit int16 == clipped wide output, every route."""
     rng = np.random.default_rng(91)
     for in_rate, out_rate in [(48000, 44100), (96000, 48000), (44100, 8000)]:
         data = rng.integers(-32768, 32768, size=(2, 300, 2)).astype(np.int16)
-        wide = UniformStreamFarm(2, 2, in_rate, out_rate, chunk_frames=256, interpret=True)
+        wide = UniformStreamFarm(2, 2, in_rate, out_rate, chunk_frames=256)
         clamped = UniformStreamFarm(2, 2, in_rate, out_rate, chunk_frames=256,
-                                    interpret=True, clamp_s16=True)
+                                    clamp_s16=True)
         w = np.concatenate([wide.process(data[:, :256]), wide.process(data[:, 256:]),
                             wide.flush()], axis=1)
         c = np.concatenate([clamped.process(data[:, :256]), clamped.process(data[:, 256:]),
@@ -267,7 +270,7 @@ def test_mixed_farm_per_stream_adjust():
     # stream 1 re-rates to 96k->48k before chunk 2, then to 32k->48k before
     # chunk 3 (second adjust lands on its private farm); max_radius reserves
     # the widest radius the schedule reaches.
-    farm = MixedStreamFarm(specs, ch, chunk_frames=chunk, interpret=True,
+    farm = MixedStreamFarm(specs, ch, chunk_frames=chunk,
                            max_radius=8)
     outs = [[] for _ in specs]
     for k in range(n_chunks):
@@ -284,7 +287,7 @@ def test_mixed_farm_per_stream_adjust():
     # per-stream references with the same schedule
     for i, (in_rate, out_rate) in enumerate(specs):
         ref = UniformStreamFarm(1, ch, in_rate, out_rate, chunk_frames=chunk,
-                                interpret=True, max_radius=8)
+                                max_radius=8)
         want = []
         for k in range(n_chunks):
             if i == 1 and k == 2:
@@ -298,92 +301,26 @@ def test_mixed_farm_per_stream_adjust():
         np.testing.assert_array_equal(got, want_cat, err_msg=f"stream {i}")
 
 
-def test_wide_bound_farm_narrow_ratio_bit_exact():
-    """A farm whose reserved radius exceeds the fast-kernel guard routes ALL
-    its launches through the wide DMA kernel — including launches at narrow
-    current ratios (d<=1), where consecutive frames' windows nearly
-    coincide. Must match the C-exact host path bit-for-bit at every kernel
-    classes a reserved-wide farm can run (upsample d=0 and the headline
-    d=1)."""
-    rng = np.random.default_rng(67)
-    ch, chunk = 1, 128
-    data = rng.integers(-32768, 32768, size=(2, chunk, ch)).astype(np.int16)
-
-    for in_rate, out_rate in [(8000, 44100), (48000, 44100)]:
-        farm = UniformStreamFarm(2, ch, in_rate, out_rate,
-                                 max(in_rate, out_rate), chunk_frames=chunk,
-                                 interpret=True, max_radius=520)
-        assert farm._max_taps > 1024, "farm must sit in the wide-dispatch regime"
-        got = np.concatenate([farm.process(data), farm.flush()], axis=1)
-        for i in range(2):
-            want = _host_reference(data[i], ch, in_rate, out_rate,
-                                   max(in_rate, out_rate))
-            np.testing.assert_array_equal(
-                got[i], want, err_msg=f"{in_rate}->{out_rate} stream {i}")
-
-
-def test_medium_width_farm_wide_dispatch_bit_exact(monkeypatch):
-    """With the medium-width crossover lowered (WIDE_DISPATCH_MIN_TAPS),
-    general-class farm launches in the band run the DMA wide kernel. Two
-    regimes: (a) the farm's ratio IS medium-width (taps 760) -> wide
-    dispatch; (b) the reserve-gap — a medium RESERVED width over a narrow
-    current ratio. Since round 5 the farm launches at the CURRENT width
-    class, so regime (b) dispatches the narrow-class kernel at taps 40
-    (reading 40-tap windows against the 380-radius staging halo — the
-    halo_shift geometry the round-3 reserve-gap trap was about), and must
-    stay bit-exact."""
-    from clownresampler_tpu.ops import pallas_resample as pr
-
-    monkeypatch.setattr(pr, "WIDE_DISPATCH_MIN_TAPS", 504)
-
-    rng = np.random.default_rng(71)
-    ch, chunk = 1, 2048
-    data = rng.integers(-32768, 32768, size=(2, 2 * chunk, ch)).astype(np.int16)
-
-    for in_rate, out_rate, max_radius, want_kind, want_taps in [
-        (44100, 349, None, "wide", 760),   # (a) medium-width ratio
-        (44100, 8000, 380, "general", 40),  # (b) narrow under medium reserve
-    ]:
-        farm = UniformStreamFarm(2, ch, in_rate, out_rate,
-                                 max(in_rate, out_rate), chunk_frames=chunk,
-                                 interpret=True, max_radius=max_radius)
-        assert 504 < farm._max_taps <= 1024, "farm must sit in the medium band"
-        specs, _ = farm._launch_specs(8)
-        assert specs[0][3][0] == want_kind, specs[0][3]
-        assert specs[0][3][3] == want_taps, specs[0][3]
-        chunks = data[:, :chunk], data[:, chunk:]
-        got = np.concatenate(
-            [farm.process(np.ascontiguousarray(c)) for c in chunks]
-            + [farm.flush()], axis=1)
-        for i in range(2):
-            want = _host_reference(data[i], ch, in_rate, out_rate,
-                                   max(in_rate, out_rate))
-            np.testing.assert_array_equal(
-                got[i], want, err_msg=f"{in_rate}->{out_rate} stream {i}")
-
-
 def test_mixed_farm_adjust_stream_capacity_drift():
-    """Round-2 advisor repro: with chunk_frames=8192 and max_radius=30 the
-    strided-slack reservation depends on the PRIMARY ratio, so migrating a
-    stream between a tiled-primary group and a strided-primary solo farm used
-    to crash with 'capacity drift between farms' (8566 vs 16108 rows). The
-    solo farm now inherits the source capacity; outputs stay bit-exact."""
+    """Migrating a stream between a near-class group and an exact-stride solo farm
+    (and back) keeps the staging geometry: with chunk_frames=8192 and
+    max_radius=30 both farms size their buffers identically and outputs
+    stay bit-exact."""
     from clownresampler_tpu.farm import MixedStreamFarm
 
     rng = np.random.default_rng(53)
     ch, chunk, n_chunks = 1, 512, 3
     for specs, new_rate in [
-        # tiled-primary group, stream 0 re-rates to an integer stride
+        # near-primary group, stream 0 re-rates to an integer stride
         ([(48000, 44100), (48000, 44100)], (96000, 48000)),
-        # strided-primary group (capacity past the VMEM budget), stream 0
-        # re-rates OUT to a tiled ratio
+        # exact-stride primary group, stream 0 re-rates OUT to a near ratio
         ([(96000, 48000), (96000, 48000)], (48000, 44100)),
     ]:
         data = [
             rng.integers(-32768, 32768, size=(n_chunks * chunk, ch)).astype(np.int16)
             for _ in specs
         ]
-        farm = MixedStreamFarm(specs, ch, chunk_frames=8192, interpret=True,
+        farm = MixedStreamFarm(specs, ch, chunk_frames=8192,
                                max_radius=30)
         outs = [[] for _ in specs]
         for k in range(n_chunks):
@@ -396,7 +333,7 @@ def test_mixed_farm_adjust_stream_capacity_drift():
             outs[i].append(r)
         for i, (in_rate, out_rate) in enumerate(specs):
             ref = UniformStreamFarm(1, ch, in_rate, out_rate, chunk_frames=8192,
-                                    interpret=True, max_radius=30)
+                                    max_radius=30)
             want = []
             for k in range(n_chunks):
                 if i == 0 and k == 1:
@@ -417,14 +354,13 @@ def test_mixed_farm_adjust_stream_rejects_and_rolls_back():
     specs = [(48000, 44100), (48000, 44100)]
     data = [rng.integers(-32768, 32768, size=(2 * chunk, ch)).astype(np.int16)
             for _ in specs]
-    farm = MixedStreamFarm(specs, ch, chunk_frames=chunk, interpret=True)
+    farm = MixedStreamFarm(specs, ch, chunk_frames=chunk)
     farm.process([d[:chunk] for d in data])
     # radius growth past the construction bound fails, nothing changes
     assert not farm.adjust_stream(0, 44100, 8000)
     assert len(farm._groups) == 1 and farm._groups[0][1] == [0, 1]
     res = farm.process([d[chunk:] for d in data])
-    ref = UniformStreamFarm(2, ch, 48000, 44100, chunk_frames=chunk,
-                            interpret=True)
+    ref = UniformStreamFarm(2, ch, 48000, 44100, chunk_frames=chunk)
     a = ref.process(np.stack([d[:chunk] for d in data]))
     b = ref.process(np.stack([d[chunk:] for d in data]))
     np.testing.assert_array_equal(
@@ -440,8 +376,8 @@ def test_mixed_farm_clamp_s16():
     specs = [(48000, 44100), (8000, 44100)]
     data = [rng.integers(-32768, 32768, size=(chunk, ch)).astype(np.int16)
             for _ in specs]
-    wide = MixedStreamFarm(specs, ch, chunk_frames=chunk, interpret=True)
-    clamped = MixedStreamFarm(specs, ch, chunk_frames=chunk, interpret=True,
+    wide = MixedStreamFarm(specs, ch, chunk_frames=chunk)
+    clamped = MixedStreamFarm(specs, ch, chunk_frames=chunk,
                               clamp_s16=True)
     a = wide.process(data)
     b = clamped.process(data)
@@ -451,107 +387,52 @@ def test_mixed_farm_clamp_s16():
             b[i], np.clip(a[i], -0x7FFF, 0x7FFF).astype(np.int16))
 
 
-def test_farm_large_max_radius_keeps_fast_kernel():
-    """Regression: the strided-slack reservation must not balloon capacity
-    past the VMEM budget and silently reroute every launch to the gather
-    oracle (round-2 advisor finding)."""
-    from clownresampler_tpu.farm import VMEM_SAFE_INPUT_ROWS
+def test_farm_large_max_radius_launches_current_width():
+    """A farm reserving a wide radius launches at the CURRENT ratio's tap
+    width (kernel values past a frame's taps are zero), and its staging
+    holds every legal read of the reserve."""
+    from clownresampler_tpu.farm import staging_capacity
 
-    farm = UniformStreamFarm(4, 2, 48000, 44100, chunk_frames=4096,
-                             interpret=True, max_radius=30)
-    assert farm._capacity <= VMEM_SAFE_INPUT_ROWS
-    specs, _ = farm._launch_specs(256)
-    assert specs[0][3][0] == "tiled", specs[0][3]
+    farm = UniformStreamFarm(4, 2, 48000, 44100, chunk_frames=4096, max_radius=30)
+    assert farm._capacity == staging_capacity(30, 4096, 64)
+    (_, _, plan), = farm._launch_specs(256)
+    assert plan == (8, 256, False), plan
 
 
-def test_farm_strided_xla_downgrade_bit_exact():
-    """A strided farm whose staging lacks the polyphase over-read padding
-    downgrades to the XLA path (kind strided_xla) and stays bit-exact."""
+def test_farm_strided_padding_frames_stay_in_buffer():
+    """Exact-stride launches pad their frame count to a multiple of 8, and
+    the padding frames' windows start d rows apart past the last legal one;
+    at full staging fill (a flush after a full chunk) only those padding
+    windows may be clamped into the buffer, never a legal one."""
     rng = np.random.default_rng(59)
-    ch, chunk = 2, 512
+    ch, chunk = 2, 509                     # natural counts off the 8 grain
     data = rng.integers(-32768, 32768, size=(3, 2 * chunk, ch)).astype(np.int16)
-
-    farm = UniformStreamFarm(3, ch, 96000, 48000, chunk_frames=chunk,
-                             interpret=True)
-    # Sabotage the reserved slack so the phases contract cannot hold: shrink
-    # the staging buffer to the bare strided-XLA requirement.
-    specs, _ = farm._launch_specs(chunk // 2)
-    assert specs[0][3][0] == "strided"      # normally the polyphase kernels
-    import numpy as _np
-    cap = farm._capacity
-    farm._capacity = 2 * farm._radius_bound + chunk + farm._max_taps + 32
-    farm._staging = _np.zeros((farm._capacity, farm._lanes), _np.int32)
-    specs, _ = farm._launch_specs(chunk // 2)
-    assert specs[0][3][0] == "strided_xla", specs[0][3]
-
+    farm = UniformStreamFarm(3, ch, 192000, 48000, chunk_frames=chunk)
+    (_, _, plan), = farm._launch_specs(chunk // 4)
+    assert plan[1] % 8 == 0 and plan[1] > chunk // 4, plan
     outs = [farm.process(data[:, :chunk]), farm.process(data[:, chunk:]),
             farm.flush()]
     got = np.concatenate(outs, axis=1)
     for i in range(3):
-        want = _host_reference(data[i], ch, 96000, 48000, 96000)
+        want = _host_reference(data[i], ch, 192000, 48000, 192000)
         np.testing.assert_array_equal(got[i], want, err_msg=f"stream {i}")
 
 
-def test_farm_large_chunk_strided_keeps_polyphase():
-    """A strided-primary farm whose capacity exceeds the fused-kernel VMEM
-    budget still reserves the polyphase padding (the WIDE variant only needs
-    capacity/d rows per block) and stays bit-exact (round-2 review
-    finding)."""
-    from clownresampler_tpu.farm import VMEM_SAFE_INPUT_ROWS
+def test_farm_launch_routes_by_platform(monkeypatch):
+    """The farm plans the same launches for every ratio class on the GPU as
+    on the CPU, each at its ratio's tap width; the platform only decides
+    where the staging buffer lives."""
+    from clownresampler_tpu import platform
 
-    rng = np.random.default_rng(61)
-    ch, chunk = 1, 13000
-    farm = UniformStreamFarm(2, ch, 96000, 48000, chunk_frames=chunk,
-                             interpret=True)
-    assert farm._capacity > VMEM_SAFE_INPUT_ROWS
-    specs, _ = farm._launch_specs(4096)
-    assert specs[0][3][0] == "strided", specs[0][3]
-
-    data = rng.integers(-32768, 32768, size=(2, chunk, ch)).astype(np.int16)
-    got = np.concatenate([farm.process(data), farm.flush()], axis=1)
-    for i in range(2):
-        want = _host_reference(data[i], ch, 96000, 48000, 96000)
-        np.testing.assert_array_equal(got[i], want, err_msg=f"stream {i}")
-
-
-def test_general_envelope_failure_dispatch_policy():
-    """A general-class farm whose staging shape has NO legal frame group in
-    the measured compile envelope (multi-lane, capacity > the 12288-row
-    group-16 ceiling) must route to the DMA wide kernel, not the gather
-    oracle (VERDICT r4 item 7: the wide kernel measured ~6x the oracle in
-    exactly this band). Cheap policy pin — the bit-exact replay is the slow
-    test below."""
-    from clownresampler_tpu.ops.pallas_resample import general_pick_group
-
-    # 44.1k->8k is general class (d=5, frac != 0) with shift-band taps;
-    # 260 lanes -> multi-lane tiles; chunk_frames pushes capacity past the
-    # multi-lane group-16 envelope ceiling.
-    farm = UniformStreamFarm(260, 1, 44100, 8000, 44100,
-                             chunk_frames=12500, interpret=True)
-    lane_w = max(w for w, _ in farm._lane_slices)
-    assert lane_w > 128 and farm._capacity > 12288, (
-        lane_w, farm._capacity)   # the premise: the envelope must fail here
-    assert general_pick_group(256, farm._capacity, lane_w,
-                              farm._max_taps) is None
-    specs, _ = farm._launch_specs(8)
-    assert specs[0][3][0] == "wide", specs[0][3]
-
-
-def test_general_envelope_failure_wide_route_bit_exact():
-    """Bit-exactness of the envelope-failure reroute: shift-band taps (~40)
-    through the DMA wide kernel via the farm dispatcher — a width band the
-    wide kernel never served before round 5."""
-    rng = np.random.default_rng(97)
-    ch, feed = 1, 2000
-    farm = UniformStreamFarm(260, ch, 44100, 8000, 44100,
-                             chunk_frames=12500, interpret=True)
-    specs, _ = farm._launch_specs(8)
-    assert specs[0][3][0] == "wide", specs[0][3]
-    data = rng.integers(-32768, 32768, size=(260, 2 * feed, ch)).astype(np.int16)
-    got = np.concatenate(
-        [farm.process(np.ascontiguousarray(data[:, :feed])),
-         farm.process(np.ascontiguousarray(data[:, feed:])),
-         farm.flush()], axis=1)
-    for i in (0, 1, 259):   # spot-check streams (the host loop is per-stream)
-        want = _host_reference(data[i], ch, 44100, 8000, 44100)
-        np.testing.assert_array_equal(got[i], want, err_msg=f"stream {i}")
+    rates = [((48000, 44100), 8), ((44100, 8000), 40), ((44100, 132), 2008),
+             ((96000, 48000), 16)]
+    plans = {}
+    for name in ("cpu", "gpu"):
+        monkeypatch.setattr(platform, "backend", lambda: name)
+        for (i, o), taps in rates:
+            farm = UniformStreamFarm(2, 2, i, o, chunk_frames=256)
+            assert farm._device_staging == (name == "gpu")
+            specs = farm._launch_specs(64)
+            assert {p[0] for _, _, p in specs} == {taps}
+            plans.setdefault((i, o), []).append([p for _, _, p in specs])
+    assert all(cpu == gpu for cpu, gpu in plans.values())

@@ -137,7 +137,7 @@ def test_positions_from_state():
 def test_reciprocal_q31_float_first_edges():
     """The float-first exact-division formulation vs int64 division over the
     realisable domain edges and a dense random sample (the full [2, 2^28]
-    domain is swept on hardware by tools/verify_reciprocal.py)."""
+    domain is swept on the GPU by chip_smoke.py's reciprocal phase)."""
     import numpy as np
 
     from clownresampler_tpu import fixedpoint as fx

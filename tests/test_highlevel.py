@@ -89,9 +89,9 @@ def test_highlevel_script(script):
 
 
 @pytest.mark.parametrize("in_rate,out_rate,ch", [
-    (48000, 44100, 1),    # tiled engine (the config-1b bench ratio)
-    (96000, 48000, 2),    # polyphase strided engine
-    (44100, 8000, 2),     # general engine
+    (48000, 44100, 1),    # near class (the config-1b bench ratio)
+    (96000, 48000, 2),    # exact stride d=2
+    (44100, 8000, 2),     # general class
 ])
 def test_resample_stream_bulk_fused_identical_bytes(in_rate, out_rate, ch):
     """resample_stream(bulk=True) — the whole stream as ONE fused device
@@ -232,8 +232,8 @@ def test_realtime_refusal_resumes_bit_exact():
 
 
 @pytest.mark.parametrize("in_rate,out_rate,ch,n_a", [
-    (48000, 44100, 2, 5000),   # tiled engine
-    (44100, 8000, 2, 3000),    # general engine, radius 17
+    (48000, 44100, 2, 5000),   # near class
+    (44100, 8000, 2, 3000),    # general class, radius 17
     (44100, 8000, 1, 10),      # stream shorter than the kernel radius
 ])
 def test_bulk_then_incremental_resume(in_rate, out_rate, ch, n_a):
@@ -258,7 +258,7 @@ def test_bulk_then_incremental_resume(in_rate, out_rate, ch, n_a):
         return cb
 
     lpf = max(in_rate, out_rate)
-    bulk = HighLevelResampler.init(ch, in_rate, out_rate, lpf, interpret=True)
+    bulk = HighLevelResampler.init(ch, in_rate, out_rate, lpf)
     host = HighLevelResampler.init(ch, in_rate, out_rate, lpf)
     out_b1 = bulk.resample_stream(make_cb(a), bulk=True)
     out_h1 = host.resample_stream(make_cb(a), bulk=False)

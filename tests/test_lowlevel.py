@@ -62,121 +62,98 @@ def test_lowlevel_script(script):
     _replay(*script)
 
 
+def _oracle(padded, n_in, in_rate, out_rate, lpf=None):
+    return oracle.convolve_padded(padded, n_in, in_rate, out_rate,
+                                  lpf or max(in_rate, out_rate))
+
+
+def _stream(rng, n_in, ch, r):
+    data = rng.integers(-32768, 32768, size=(n_in, ch)).astype(np.int16)
+    padded = np.zeros((n_in + 2 * r, ch), np.int16)
+    padded[r : r + n_in] = data
+    return padded
+
+
 @pytest.mark.parametrize("in_rate,out_rate,ch,n_in", [
-    (48000, 44100, 2, 2600),    # tiled engine
-    (96000, 48000, 1, 5200),    # polyphase strided engine
-    (44100, 8000, 2, 14000),    # general engine
+    (48000, 44100, 2, 2600),    # near class
+    (96000, 48000, 1, 5200),    # exact stride d=2
+    (44100, 8000, 2, 14000),    # general class
 ])
 def test_batched_tile_dispatch_bit_exact(monkeypatch, in_rate, out_rate, ch, n_in):
-    """The grouped multi-tile device dispatch (_compute_frames_batched: all
-    windows uploaded first, TILE_LAUNCH_GROUP independent launches fused per
-    program, downloads last) must be bit-equal to the XLA gather oracle.
-    MAX_CHUNK_OUTPUT_FRAMES is shrunk so a moderate stream spans many tiles,
-    exercising the grouping, the tail-tile shape change, and the device-side
-    int16->int32 lane packing."""
+    """The grouped multi-tile device dispatch (all windows uploaded first,
+    TILE_LAUNCH_GROUP independent launches fused per program, downloads
+    last) must be bit-equal to the oracle. MAX_CHUNK_OUTPUT_FRAMES is shrunk
+    so a moderate stream spans many tiles, exercising the grouping, the
+    tail-tile shape change, and the device-side int16->int32 widening."""
     from clownresampler_tpu import lowlevel
 
     monkeypatch.setattr(lowlevel, "MAX_CHUNK_OUTPUT_FRAMES", 512)
-
-    rng = np.random.default_rng(101)
-    data = rng.integers(-32768, 32768, size=(n_in, ch)).astype(np.int16)
-
-    fast = LowLevelResampler.init(ch, in_rate, out_rate,
-                                  max(in_rate, out_rate), interpret=True)
-    oracle_rs = LowLevelResampler.init(ch, in_rate, out_rate,
-                                       max(in_rate, out_rate))
-    r = fast.config.integer_stretched_kernel_radius
-    padded = np.zeros((n_in + 2 * r, ch), np.int16)
-    padded[r : r + n_in] = data
-
-    _, _, got = fast.resample(padded, n_in)
-    _, _, want = oracle_rs.resample(padded, n_in)
+    rs = LowLevelResampler.init(ch, in_rate, out_rate, max(in_rate, out_rate))
+    padded = _stream(np.random.default_rng(101), n_in, ch,
+                     rs.config.integer_stretched_kernel_radius)
+    _, _, got = rs.resample(padded, n_in)
     assert got.shape[0] > 512, "stream too short to exercise multiple tiles"
-    np.testing.assert_array_equal(got, want)
+    np.testing.assert_array_equal(got, _oracle(padded, n_in, in_rate, out_rate))
 
 
-def test_batched_tile_dispatch_wide_kernel():
-    """Wide kernels (taps > FAST_KERNEL_MAX_TAPS) through the same batched
-    dispatch: several WIDE_MAX_LAUNCH_FRAMES tiles grouped per program,
-    bit-equal to the gather oracle (the bulk path no longer declines wide
-    ratios)."""
-    rng = np.random.default_rng(103)
+def test_batched_tile_dispatch_wide_kernel(monkeypatch):
+    """Wide kernels (taps 2008) through the same batched dispatch: tiles
+    bounded by the lanes route's window-gather bound, several grouped per
+    program, bit-equal to the oracle."""
+    from clownresampler_tpu.ops import resample as ops
+
+    monkeypatch.setattr(ops, "WINDOW_GATHER_BYTES", 64 * 2008 * 4)
     in_rate, out_rate, ch = 44100, 132, 1      # radius 1003, taps 2008
     n_in = 60000                                # ~180 output frames, 3 tiles
-
-    data = rng.integers(-32768, 32768, size=(n_in, ch)).astype(np.int16)
-    fast = LowLevelResampler.init(ch, in_rate, out_rate, in_rate,
-                                  interpret=True)
-    assert fast._max_taps > 1024
-    oracle_rs = LowLevelResampler.init(ch, in_rate, out_rate, in_rate)
-    r = fast.config.integer_stretched_kernel_radius
-    padded = np.zeros((n_in + 2 * r, ch), np.int16)
-    padded[r : r + n_in] = data
-
-    _, _, got = fast.resample(padded, n_in)
-    _, _, want = oracle_rs.resample(padded, n_in)
+    rs = LowLevelResampler.init(ch, in_rate, out_rate, in_rate)
+    assert rs._max_taps == 2008
+    padded = _stream(np.random.default_rng(103), n_in, ch,
+                     rs.config.integer_stretched_kernel_radius)
+    _, _, got = rs.resample(padded, n_in)
     assert got.shape[0] >= 128
-    np.testing.assert_array_equal(got, want)
+    np.testing.assert_array_equal(got, _oracle(padded, n_in, in_rate, out_rate))
 
 
 def test_wide_serves_lane_aware_crossover():
-    """The medium-width dispatch boundary is LANE-DEPENDENT (measured,
-    tools/probe_midwide.py round 4): multi-lane-tile launches route the
-    whole roll band (taps > 248) to the DMA wide kernel; single-tile
-    launches keep the general roll kernel through taps 392. The shift band
-    and non-general classes never cross."""
-    from clownresampler_tpu.ops import pallas_resample as pr
+    """Tiles launch at the current ratio's tap width, for every ratio class
+    and lane count (no lane padding)."""
+    from clownresampler_tpu import lowlevel
 
-    assert not pr.wide_serves("general", 248, lanes=2048)   # shift band
-    assert pr.wide_serves("general", 272, lanes=2048)       # roll band, multi
-    assert not pr.wide_serves("general", 272, lanes=128)    # single tile
-    assert not pr.wide_serves("general", 392, lanes=128)
-    assert pr.wide_serves("general", 512, lanes=128)
-    assert pr.wide_serves("general", 272)                   # default: multi
-    assert not pr.wide_serves("tiled", 2000, lanes=2048)
-    assert not pr.wide_serves("strided", 2000, lanes=2048)
+    seen = []
+    real = lowlevel._grouped_packed_launch
+
+    def spy(table, xs, f0s, cfg, plans):
+        seen.extend((p[0], x.shape[1]) for p, x in zip(plans, xs))
+        return real(table, xs, f0s, cfg, plans)
+
+    lowlevel._grouped_packed_launch, saved = spy, real
+    try:
+        for (i, o), ch, want in [((48000, 44100), 3, (8,)),
+                                 ((96000, 48000), 1, (16,)),
+                                 ((44100, 8000), 130, (40,))]:
+            seen.clear()
+            rs = LowLevelResampler.init(ch, i, o, max(i, o), max_radius=30)
+            rs.resample(np.zeros((600, ch), np.int16), 500)
+            assert seen and set(seen) == {want + (ch,)}, seen
+    finally:
+        lowlevel._grouped_packed_launch = saved
 
 
-@pytest.mark.parametrize("in_rate,out_rate,threshold", [
-    (44100, 349, 504),   # taps 760 through a mid-band crossover
-    (44100, 991, 248),   # taps 272 — the bottom of the roll-path band
+@pytest.mark.parametrize("in_rate,out_rate", [
+    (44100, 349),   # taps 760
+    (44100, 991),   # taps 272
 ])
-def test_medium_width_wide_dispatch_bit_exact(monkeypatch, in_rate, out_rate,
-                                              threshold):
-    """With the medium-width crossover lowered (WIDE_DISPATCH_MIN_TAPS),
-    general-class launches in the band route to the DMA wide kernel and stay
-    bit-equal to the gather oracle. Guards the dispatch plumbing so flipping
-    the measured crossover constant is behavior-safe."""
-    from clownresampler_tpu.ops import pallas_resample as pr
-
-    monkeypatch.setattr(pr, "WIDE_DISPATCH_MIN_TAPS", threshold)
-    calls = []
-    real_wide = pr.resample_wide_taps
-
-    def counting_wide(*args, **kwargs):
-        calls.append(kwargs.get("max_taps"))
-        return real_wide(*args, **kwargs)
-
-    monkeypatch.setattr(pr, "resample_wide_taps", counting_wide)
-
-    rng = np.random.default_rng(107)
-    ch = 2
-    n_in = 30000
-
-    data = rng.integers(-32768, 32768, size=(n_in, ch)).astype(np.int16)
-    fast = LowLevelResampler.init(ch, in_rate, out_rate, in_rate,
-                                  interpret=True)
-    assert threshold < fast._max_taps <= 1024
-    oracle_rs = LowLevelResampler.init(ch, in_rate, out_rate, in_rate)
-    r = fast.config.integer_stretched_kernel_radius
-    padded = np.zeros((n_in + 2 * r, ch), np.int16)
-    padded[r : r + n_in] = data
-
-    _, _, got = fast.resample(padded, n_in)
-    _, _, want = oracle_rs.resample(padded, n_in)
+def test_medium_width_wide_dispatch_bit_exact(in_rate, out_rate):
+    """Medium tap widths through the lanes route and the batched dispatch
+    stay bit-equal to the oracle."""
+    ch, n_in = 2, 30000
+    rs = LowLevelResampler.init(ch, in_rate, out_rate, in_rate)
+    assert 248 < rs._max_taps <= 1024
+    padded = _stream(np.random.default_rng(107), n_in, ch,
+                     rs.config.integer_stretched_kernel_radius)
+    _, _, got = rs.resample(padded, n_in)
     assert got.shape[0] >= 128
-    assert calls and all(t == fast._max_taps for t in calls), calls
-    np.testing.assert_array_equal(got, want)
+    np.testing.assert_array_equal(got, _oracle(padded, n_in, in_rate, out_rate))
 
 
 def test_pack_super_groups_shapes():
@@ -189,69 +166,41 @@ def test_pack_super_groups_shapes():
 
     # (tile, n_pad, rows, p0, f0): packing keys on n_pad/rows only
     mk = lambda n_pad, rows: (n_pad, n_pad, rows, 0, 0)
-    ch = 2
-    res = lambda n_pad, rows: rows * ch * 2 + n_pad * ch * 4
-    tmp = lambda n_pad, rows: (rows + n_pad) * 128 * 4
+    for ch in (2, 130):
+        res = lambda n_pad, rows: rows * ch * 2 + n_pad * ch * 4
+        tmp = lambda n_pad, rows: rows * ch * 4     # the widened int32 window
 
-    # 6 same-shape tiles -> groups of 4 + 2; a shape change breaks a run
-    descs = [mk(512, 1024)] * 6 + [mk(256, 1024)]
-    sg = _pack_super_groups(descs, ch, 10 << 30)
-    assert TILE_LAUNCH_GROUP == 4
-    assert sg == [[(0, 4), (4, 6), (6, 7)]]   # one cycle, 3 groups
+        # 6 same-shape tiles -> groups of 4 + 2; a shape change breaks a run
+        descs = [mk(512, 1024)] * 6 + [mk(256, 1024)]
+        sg = _pack_super_groups(descs, ch, 10 << 30)
+        assert TILE_LAUNCH_GROUP == 4
+        assert sg == [[(0, 4), (4, 6), (6, 7)]]   # one cycle, 3 groups
 
-    # budget tuned so the FIRST cycle holds exactly two groups, then splits:
-    # after groups 1+2 are resident, group 3's check is
-    # resident(g1+g2) + res(g3) + tmp(g3) > budget.
-    g_res = 4 * res(512, 1024)
-    g_tmp = 4 * tmp(512, 1024)
-    budget = 2 * g_res + g_tmp          # fits g1, then g2; g3 tips over
-    descs = [mk(512, 1024)] * 12
-    sg = _pack_super_groups(descs, ch, budget)
-    assert sg == [[(0, 4), (4, 8)], [(8, 12)]]
-
-    # a budget below one group still yields one group per cycle (never empty)
-    sg = _pack_super_groups(descs, ch, 1)
-    assert sg == [[(0, 4)], [(4, 8)], [(8, 12)]]
-
-    # channels > 128: the transient charge is round_up(ch, 128) lanes (256
-    # here), matching what _grouped_packed_launch actually allocates — a
-    # 128-lane charge would undercount 2x and let a cycle bust the budget
-    ch2 = 130
-    res2 = lambda n_pad, rows: rows * ch2 * 2 + n_pad * ch2 * 4
-    tmp2 = lambda n_pad, rows: (rows + n_pad) * 256 * 4
-    g_res2 = 4 * res2(512, 1024)
-    g_tmp2 = 4 * tmp2(512, 1024)
-    budget2 = 2 * g_res2 + g_tmp2
-    assert _pack_super_groups(descs, ch2, budget2) == [[(0, 4), (4, 8)], [(8, 12)]]
-    # one byte less must tip the second group out — only true when the
-    # transient is charged at the full 256 lanes
-    assert _pack_super_groups(descs, ch2, budget2 - 1) == [
-        [(0, 4)], [(4, 8)], [(8, 12)]]
+        # budget tuned so the FIRST cycle holds exactly two groups, then
+        # splits: after groups 1+2 are resident, group 3's check is
+        # resident(g1+g2) + res(g3) + tmp(g3) > budget.
+        budget = 2 * 4 * res(512, 1024) + 4 * tmp(512, 1024)
+        descs = [mk(512, 1024)] * 12
+        assert _pack_super_groups(descs, ch, budget) == [
+            [(0, 4), (4, 8)], [(8, 12)]]
+        # one byte less tips the second group out
+        assert _pack_super_groups(descs, ch, budget - 1) == [
+            [(0, 4)], [(4, 8)], [(8, 12)]]
+        # a budget below one group still yields one group per cycle
+        assert _pack_super_groups(descs, ch, 1) == [[(0, 4)], [(4, 8)], [(8, 12)]]
 
 
 def test_sequential_wide_tile_many_channels():
-    """A single-tile stream (the sequential dispatch path, <= 64 wide output
-    frames) through the wide kernel at channels > 128: the staging window
-    must widen to round_up(ch, 128) lanes exactly like the fast and batched
-    paths (a hardcoded 128-lane window raised on ch > 128 here while longer
-    streams of the same config succeeded through the batched dispatch)."""
-    rng = np.random.default_rng(109)
+    """A single-tile stream (<= 64 wide output frames) at channels > 128:
+    the window keeps the stream's own lane count."""
     in_rate, out_rate, ch = 44100, 132, 130    # radius 1003, taps 2008
     n_in = 12000                               # ~35 output frames: ONE tile
-
-    data = rng.integers(-32768, 32768, size=(n_in, ch)).astype(np.int16)
-    fast = LowLevelResampler.init(ch, in_rate, out_rate, in_rate,
-                                  interpret=True)
-    assert fast._max_taps > 1024
-    oracle_rs = LowLevelResampler.init(ch, in_rate, out_rate, in_rate)
-    r = fast.config.integer_stretched_kernel_radius
-    padded = np.zeros((n_in + 2 * r, ch), np.int16)
-    padded[r : r + n_in] = data
-
-    _, _, got = fast.resample(padded, n_in)
-    _, _, want = oracle_rs.resample(padded, n_in)
+    rs = LowLevelResampler.init(ch, in_rate, out_rate, in_rate)
+    padded = _stream(np.random.default_rng(109), n_in, ch,
+                     rs.config.integer_stretched_kernel_radius)
+    _, _, got = rs.resample(padded, n_in)
     assert 0 < got.shape[0] <= 64, "stream must stay a single wide tile"
-    np.testing.assert_array_equal(got, want)
+    np.testing.assert_array_equal(got, _oracle(padded, n_in, in_rate, out_rate))
 
 
 def test_batched_tile_dispatch_super_groups(monkeypatch):
@@ -265,148 +214,93 @@ def test_batched_tile_dispatch_super_groups(monkeypatch):
     from clownresampler_tpu.lowlevel import _pack_super_groups
 
     monkeypatch.setattr(lowlevel, "MAX_CHUNK_OUTPUT_FRAMES", 512)
-
-    rng = np.random.default_rng(107)
     in_rate, out_rate, ch, n_in = 48000, 44100, 2, 7000
-    data = rng.integers(-32768, 32768, size=(n_in, ch)).astype(np.int16)
-
-    fast = LowLevelResampler.init(ch, in_rate, out_rate,
-                                  max(in_rate, out_rate), interpret=True)
     # Capture the descs the dispatch actually builds, then pick a budget that
     # provably packs them as >=2 cycles with some cycle holding >=2 groups
     # (a fixed byte count would silently stop exercising the multi-group
     # cycle whenever the geometry formulas move).
     captured = {}
-    orig = lowlevel.LowLevelResampler._compute_frames_batched
+    orig = lowlevel._pack_super_groups
 
-    def spy(self, padded_input, descs, kind, table, tstr, taps, cand=None):
+    def spy(descs, ch_, budget):
         captured["descs"] = descs
-        return orig(self, padded_input, descs, kind, table, tstr, taps, cand)
+        return orig(descs, ch_, budget)
 
-    monkeypatch.setattr(
-        lowlevel.LowLevelResampler, "_compute_frames_batched", spy
-    )
-
-    oracle_rs = LowLevelResampler.init(ch, in_rate, out_rate,
-                                       max(in_rate, out_rate))
-    r = fast.config.integer_stretched_kernel_radius
-    padded = np.zeros((n_in + 2 * r, ch), np.int16)
-    padded[r : r + n_in] = data
-
-    probe = LowLevelResampler.init(ch, in_rate, out_rate,
-                                   max(in_rate, out_rate), interpret=True)
-    _, _, _ = probe.resample(padded, n_in)
+    monkeypatch.setattr(lowlevel, "_pack_super_groups", spy)
+    rs = LowLevelResampler.init(ch, in_rate, out_rate, max(in_rate, out_rate))
+    padded = _stream(np.random.default_rng(107), n_in, ch,
+                     rs.config.integer_stretched_kernel_radius)
+    rs.resample(padded, n_in)
     descs = captured["descs"]
     budget = None
-    # step must undercut the ~g_res-wide budget window in which a cycle
-    # holds >=2 groups before splitting (g_res is tens of KB here)
-    for cand_budget in range(1 << 20, 64 << 20, 1 << 14):
+    for cand_budget in range(1 << 12, 64 << 20, 1 << 12):
         sg = _pack_super_groups(descs, ch, cand_budget)
         if len(sg) >= 2 and any(len(cycle) >= 2 for cycle in sg):
             budget = cand_budget
             break
     assert budget is not None, "no budget packs >=2 cycles with a multi-group cycle"
-    fast.BATCH_DEVICE_BUDGET_BYTES = budget
 
+    fast = LowLevelResampler.init(ch, in_rate, out_rate, max(in_rate, out_rate))
+    fast.BATCH_DEVICE_BUDGET_BYTES = budget
     _, _, got = fast.resample(padded, n_in)
-    _, _, want = oracle_rs.resample(padded, n_in)
     assert got.shape[0] > 1024, "stream too short to span several cycles"
-    np.testing.assert_array_equal(got, want)
+    np.testing.assert_array_equal(got, _oracle(padded, n_in, in_rate, out_rate))
 
 
 def test_multilane_general_dispatch_bit_exact():
-    """channels > 128 make general-class launches multi-lane-tile, where the
-    measured compile envelope caps the row budget at 12288 (the (S, 128)
-    input block is double-buffered per lane tile). The dispatcher must cap
-    rows_budget accordingly — `general_pick_group(...) or 16` used to force
-    an envelope-violating group here (ADVICE r4) — and the capped tile
-    geometry must stay bit-equal to the gather oracle."""
-    from clownresampler_tpu.ops.pallas_resample import general_launch_fits
-
-    ch, n_in = 136, 26000            # lanes_pad 256; ~4.7k output frames
+    """channels > 128 through the general class: lanes are the stream's own
+    channels, bit-equal to the oracle over several tiles."""
+    ch, n_in = 136, 26000            # ~4.7k output frames
     in_rate, out_rate = 44100, 8000  # general class (d=5, frac != 0)
-
-    fast = LowLevelResampler.init(ch, in_rate, out_rate, 44100,
-                                  interpret=True)
-    # the premise: the envelope rejects the tiled-calibrated 16384-row
-    # budget at this lane count but accepts 12288
-    assert not general_launch_fits(16384, 256, 16, fast._max_taps)
-    assert general_launch_fits(12288, 256, 16, fast._max_taps)
-    oracle_rs = LowLevelResampler.init(ch, in_rate, out_rate, 44100)
-    rng = np.random.default_rng(211)
-    data = rng.integers(-32768, 32768, size=(n_in, ch)).astype(np.int16)
-    r = fast.config.integer_stretched_kernel_radius
-    padded = np.zeros((n_in + 2 * r, ch), np.int16)
-    padded[r : r + n_in] = data
-
-    _, _, got = fast.resample(padded, n_in)
-    _, _, want = oracle_rs.resample(padded, n_in)
+    rs = LowLevelResampler.init(ch, in_rate, out_rate, 44100)
+    padded = _stream(np.random.default_rng(211), n_in, ch,
+                     rs.config.integer_stretched_kernel_radius)
+    _, _, got = rs.resample(padded, n_in)
     assert got.shape[0] > 2200, "stream too short to exercise multiple tiles"
-    np.testing.assert_array_equal(got, want)
+    np.testing.assert_array_equal(got, _oracle(padded, n_in, in_rate, out_rate))
 
 
 def test_small_chunk_micro_launch_dispatch_bit_exact(monkeypatch):
-    """<=128-frame tiled launches dispatch at group 8 (the measured
-    micro-launch latency policy — benchmarks/RESULTS.md round-5 latency
-    sweep: group 8 is fastest at 64/128 frames; a round-4 noise artifact
-    briefly shipped group 4 here): pin that the micro-launch branch is
-    actually taken and stays bit-exact."""
-    from clownresampler_tpu.ops import pallas_resample as pr
+    """A ~110-frame stream is ONE launch padded to the 64-frame grain (128
+    frames), and stays bit-exact."""
+    from clownresampler_tpu import lowlevel
 
-    groups = []
-    real = pr.resample_uniform_lanes_tiled
+    plans = []
+    real = lowlevel._grouped_packed_launch
 
-    def spy(*args, **kwargs):
-        groups.append(kwargs.get("group"))
-        return real(*args, **kwargs)
+    def spy(table, xs, f0s, cfg, p):
+        plans.extend(p)
+        return real(table, xs, f0s, cfg, p)
 
-    monkeypatch.setattr(pr, "resample_uniform_lanes_tiled", spy)
-
-    ch, n_in = 2, 120                 # ~110 output frames -> n_pad 128
-    fast = LowLevelResampler.init(ch, 48000, 44100, 48000, interpret=True)
-    oracle_rs = LowLevelResampler.init(ch, 48000, 44100, 48000)
-    rng = np.random.default_rng(307)
-    data = rng.integers(-32768, 32768, size=(n_in, ch)).astype(np.int16)
-    r = fast.config.integer_stretched_kernel_radius
-    padded = np.zeros((n_in + 2 * r, ch), np.int16)
-    padded[r : r + n_in] = data
-
-    _, _, got = fast.resample(padded, n_in)
-    _, _, want = oracle_rs.resample(padded, n_in)
-    assert groups == [8], groups      # the micro-launch branch was taken
-    np.testing.assert_array_equal(got, want)
+    monkeypatch.setattr(lowlevel, "_grouped_packed_launch", spy)
+    ch, n_in = 2, 120
+    rs = LowLevelResampler.init(ch, 48000, 44100, 48000)
+    padded = _stream(np.random.default_rng(307), n_in, ch,
+                     rs.config.integer_stretched_kernel_radius)
+    _, _, got = rs.resample(padded, n_in)
+    assert [p[1] for p in plans] == [128], plans
+    np.testing.assert_array_equal(got, _oracle(padded, n_in, 48000, 44100))
 
 
-def test_wide_reserve_narrow_ratio_fast_kernel_dispatch():
-    """A stream whose RESERVE is past FAST_KERNEL_MAX_TAPS but whose current
-    ratio is narrow dispatches at the current width class (round 5): the
-    fast VMEM kernels serve it (previously the wide DMA kernel read the full
-    reserved window per frame), bit-exact vs the gather oracle."""
-    from clownresampler_tpu.ops import pallas_resample as pr
+def test_wide_reserve_narrow_ratio_fast_kernel_dispatch(monkeypatch):
+    """A stream whose RESERVE is wide (taps 2008) but whose current ratio is
+    narrow launches at the current width (40 taps), bit-exact vs the
+    oracle."""
+    from clownresampler_tpu import lowlevel
 
-    calls = []
-    real = pr.resample_uniform_lanes_general
+    plans = []
+    real = lowlevel._grouped_packed_launch
 
-    def spy(*args, **kwargs):
-        calls.append(kwargs.get("max_taps"))
-        return real(*args, **kwargs)
+    def spy(table, xs, f0s, cfg, p):
+        plans.extend(p)
+        return real(table, xs, f0s, cfg, p)
 
-    rng = np.random.default_rng(113)
+    monkeypatch.setattr(lowlevel, "_grouped_packed_launch", spy)
     ch, n_in = 2, 9000
-    fast = LowLevelResampler.init(ch, 44100, 8000, 44100, max_radius=1003,
-                                  interpret=True)
-    assert fast._max_taps > 1024      # reserve past the fast-kernel guard
-    oracle_rs = LowLevelResampler.init(ch, 44100, 8000, 44100)
-    data = rng.integers(-32768, 32768, size=(n_in, ch)).astype(np.int16)
-    r = fast.config.integer_stretched_kernel_radius
-    padded = np.zeros((n_in + 2 * r, ch), np.int16)
-    padded[r : r + n_in] = data
-
-    import unittest.mock
-    with unittest.mock.patch.object(
-        pr, "resample_uniform_lanes_general", spy
-    ):
-        _, _, got = fast.resample(padded, n_in)
-    _, _, want = oracle_rs.resample(padded, n_in)
-    assert calls and all(t == 40 for t in calls), calls
-    np.testing.assert_array_equal(got, want)
+    rs = LowLevelResampler.init(ch, 44100, 8000, 44100, max_radius=1003)
+    assert rs._max_taps == 2008
+    padded = _stream(np.random.default_rng(113), n_in, ch,
+                     rs.config.integer_stretched_kernel_radius)
+    _, _, got = rs.resample(padded, n_in)
+    assert plans and all(p[0] == 40 for p in plans), plans
+    np.testing.assert_array_equal(got, _oracle(padded, n_in, 44100, 8000))

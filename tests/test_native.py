@@ -100,7 +100,7 @@ def test_farm_works_with_numpy_fallback():
     try:
         rng = np.random.default_rng(6)
         data = rng.integers(-32768, 32768, size=(3, 300, 2)).astype(np.int16)
-        farm = UniformStreamFarm(3, 2, 48000, 44100, chunk_frames=256, interpret=True)
+        farm = UniformStreamFarm(3, 2, 48000, 44100, chunk_frames=256)
         outs = [farm.process(data[:, :256]), farm.process(data[:, 256:]), farm.flush()]
         got = np.concatenate(outs, axis=1)
         for i in range(3):

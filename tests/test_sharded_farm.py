@@ -18,9 +18,9 @@ def _run(farm, chunks):
 @pytest.mark.parametrize(
     "in_rate,out_rate",
     [
-        (48000, 44100),   # tiled kernel class
-        (96000, 48000),   # polyphase strided class (phases kernel per shard)
-        (44100, 8000),    # general per-frame class
+        (48000, 44100),   # near class
+        (96000, 48000),   # exact stride d=2
+        (44100, 8000),    # general class
     ],
 )
 def test_sharded_farm_matches_uniform_farm(in_rate, out_rate):
@@ -32,29 +32,25 @@ def test_sharded_farm_matches_uniform_farm(in_rate, out_rate):
         for _ in range(3)
     ]
     ref_farm = UniformStreamFarm(
-        n_streams, channels, in_rate, out_rate, interpret=True,
+        n_streams, channels, in_rate, out_rate,
         chunk_frames=chunk,
     )
     sh_farm = ShardedStreamFarm(
-        mesh, n_streams, channels, in_rate, out_rate, interpret=True,
+        mesh, n_streams, channels, in_rate, out_rate,
         chunk_frames=chunk,
     )
-    assert sh_farm._lanes % (128 * mesh.shape["dp"]) == 0
+    assert sh_farm._lanes % mesh.shape["dp"] == 0
     want = _run(ref_farm, chunks)
     got = _run(sh_farm, chunks)
     np.testing.assert_array_equal(got, want, err_msg=f"{in_rate}->{out_rate}")
 
 
-def test_sharded_farm_medium_width_wide_dispatch(monkeypatch):
-    """With the medium-width crossover lowered (WIDE_DISPATCH_MIN_TAPS), the
-    shard-mapped farm's general-class launches run the DMA wide kernel too
-    (the dispatch lives in the shared _launch_specs) — still bit-equal to
-    the single-device farm."""
-    from clownresampler_tpu.ops import pallas_resample as pr
-
-    monkeypatch.setattr(pr, "WIDE_DISPATCH_MIN_TAPS", 504)
+def test_sharded_farm_medium_width_wide_dispatch():
+    """A medium tap width (760) through the shard-mapped launch, with a lane
+    count that pads up to whole shards (509 streams over 8 devices) — still
+    bit-equal to the single-device farm."""
     mesh = make_mesh()
-    n_streams, channels, chunk = 512, 1, 2048
+    n_streams, channels, chunk = 509, 1, 2048
     in_rate, out_rate = 44100, 349          # taps 760: medium band
     rng = np.random.default_rng(17)
     chunks = [
@@ -62,15 +58,16 @@ def test_sharded_farm_medium_width_wide_dispatch(monkeypatch):
         for _ in range(2)
     ]
     ref_farm = UniformStreamFarm(
-        n_streams, channels, in_rate, out_rate, interpret=True,
+        n_streams, channels, in_rate, out_rate,
         chunk_frames=chunk,
     )
     sh_farm = ShardedStreamFarm(
-        mesh, n_streams, channels, in_rate, out_rate, interpret=True,
+        mesh, n_streams, channels, in_rate, out_rate,
         chunk_frames=chunk,
     )
-    specs, _ = sh_farm._launch_specs(8)
-    assert specs[0][3][0] == "wide", specs[0][3]
+    assert sh_farm._lanes == 512 and ref_farm._lanes == 509
+    (_, _, plan), = sh_farm._launch_specs(8)
+    assert plan[0] == 760, plan
     np.testing.assert_array_equal(_run(sh_farm, chunks), _run(ref_farm, chunks))
 
 
@@ -94,11 +91,11 @@ def test_sharded_farm_adjust_pitch_bend():
         return np.concatenate(outs, axis=1)
 
     ref_farm = UniformStreamFarm(
-        n_streams, channels, 48000, 44100, interpret=True,
+        n_streams, channels, 48000, 44100,
         chunk_frames=chunk, max_radius=8,
     )
     sh_farm = ShardedStreamFarm(
-        mesh, n_streams, channels, 48000, 44100, interpret=True,
+        mesh, n_streams, channels, 48000, 44100,
         chunk_frames=chunk, max_radius=8,
     )
     np.testing.assert_array_equal(run(sh_farm), run(ref_farm))
@@ -114,7 +111,7 @@ def test_sharded_mixed_farm_matches_mixed_farm():
 
     mesh = make_mesh()
     ch, chunk, n_chunks = 2, 384, 3
-    # 2 ratio groups x enough streams to give every device a 128-lane tile
+    # 2 ratio groups x enough streams to give every device a lane shard
     specs = [(48000, 44100)] * 512 + [(96000, 48000)] * 512
     rng = np.random.default_rng(19)
     data = [
@@ -134,10 +131,9 @@ def test_sharded_mixed_farm_matches_mixed_farm():
             outs[i].append(r)
         return [np.concatenate(o, axis=0) for o in outs]
 
-    ref = MixedStreamFarm(specs, ch, chunk_frames=chunk, interpret=True,
+    ref = MixedStreamFarm(specs, ch, chunk_frames=chunk,
                           max_radius=8)
-    sh = ShardedMixedStreamFarm(mesh, specs, ch, chunk_frames=chunk,
-                                interpret=True, max_radius=8)
+    sh = ShardedMixedStreamFarm(mesh, specs, ch, chunk_frames=chunk, max_radius=8)
     want = run(ref)
     got = run(sh)
     for i, (w, g) in enumerate(zip(want, got)):
@@ -151,9 +147,9 @@ def test_sharded_farm_clamp_s16():
     rng = np.random.default_rng(17)
     data = rng.integers(-32768, 32768, (n_streams, chunk, ch)).astype(np.int16)
     wide = ShardedStreamFarm(mesh, n_streams, ch, 48000, 44100,
-                             chunk_frames=chunk, interpret=True)
+                             chunk_frames=chunk)
     clamped = ShardedStreamFarm(mesh, n_streams, ch, 48000, 44100,
-                                chunk_frames=chunk, interpret=True,
+                                chunk_frames=chunk,
                                 clamp_s16=True)
     a = np.concatenate([wide.process(data), wide.flush()], axis=1)
     b = np.concatenate([clamped.process(data), clamped.flush()], axis=1)
@@ -162,10 +158,8 @@ def test_sharded_farm_clamp_s16():
 
 
 def test_sharded_farm_wide_kernel_class():
-    """The WIDE kernel class (taps > FAST_KERNEL_MAX_TAPS, the DMA-based
-    resample_wide_taps path) through the shard-mapped launch == the
-    single-device farm; 44100->256 is the narrowest default-model ratio past
-    the guard (radius 517, taps 1040)."""
+    """A wide tap width (44100->256: radius 517, taps 1040) through the
+    shard-mapped launch == the single-device farm."""
     mesh = make_mesh()
     n_streams, channels, chunk = 1024, 1, 3072
     rng = np.random.default_rng(23)
@@ -174,11 +168,11 @@ def test_sharded_farm_wide_kernel_class():
         for _ in range(2)
     ]
     ref_farm = UniformStreamFarm(
-        n_streams, channels, 44100, 256, interpret=True, chunk_frames=chunk,
+        n_streams, channels, 44100, 256, chunk_frames=chunk,
     )
-    assert ref_farm._max_taps > 1024, "case must exercise the wide class"
+    assert ref_farm._max_taps > 1024, "case must exercise a wide window"
     sh_farm = ShardedStreamFarm(
-        mesh, n_streams, channels, 44100, 256, interpret=True,
+        mesh, n_streams, channels, 44100, 256,
         chunk_frames=chunk,
     )
     want = _run(ref_farm, chunks)

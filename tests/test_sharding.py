@@ -1,7 +1,7 @@
 """Mesh sharding: DP x SP results must equal the unsharded batch bit-for-bit.
 
-Runs on the 8-virtual-device CPU mesh (conftest.py); the driver separately
-compile-checks the multichip path via __graft_entry__.dryrun_multichip.
+Runs on the 8-virtual-device CPU mesh (conftest.py); chip_smoke.py
+--four-cards runs the sharded paths on four GPUs.
 """
 
 import jax
@@ -89,34 +89,24 @@ def test_quota_split_over_sp():
 
 
 def test_sharded_uniform_fast_path():
-    """Lane-sharded fused kernel == single-device fused kernel (interpret)."""
+    """Lane-sharded uniform launch == the single-device lanes route."""
     import jax.numpy as jnp
     from clownresampler_tpu.lowlevel import make_device_state
     from clownresampler_tpu.models import lanczos_kernel_table
-    from clownresampler_tpu.ops.pallas_resample import (
-        plan_uniform,
-        resample_uniform_lanes_tiled,
-    )
+    from clownresampler_tpu.ops.resample import resample_lanes
     from clownresampler_tpu.parallel import sharded_uniform_resample
 
     rng = np.random.default_rng(13)
     cfg = configure(48000, 44100, 44100)
     inc = fx.calculate_ratio(48000, 44100)
     state = make_device_state(0, 0x1234, cfg, inc)
-    plan = plan_uniform(inc, 64)
-    n_out, lanes = 64, 1024  # 8 lane-tiles over 8 dp shards
+    n_out, lanes = 64, 1024  # 128 lanes on each of 8 dp shards
     s = ((n_out * inc) >> 16) + 96
     s = -(-s // 16) * 16
     x = jnp.asarray(rng.integers(-32768, 32768, size=(s, lanes)).astype(np.int32))
     table = jnp.asarray(lanczos_kernel_table())
 
-    ref, _ = resample_uniform_lanes_tiled(
-        table, x, state, max_taps=8, n_out=n_out,
-        d=plan["d"], cand=plan["cand"], interpret=True,
-    )
+    ref = resample_lanes(table, x, state, max_taps=8, n_out=n_out)
     mesh = make_mesh(dp=8, sp=1)
-    got = sharded_uniform_resample(
-        mesh, table, x, state, max_taps=8, n_out=n_out,
-        d=plan["d"], cand=plan["cand"], interpret=True,
-    )
+    got = sharded_uniform_resample(mesh, table, x, state, max_taps=8, n_out=n_out)
     np.testing.assert_array_equal(np.asarray(got), np.asarray(ref))

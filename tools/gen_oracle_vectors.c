@@ -570,10 +570,8 @@ int main(int argc, char **argv)
     }
 
     {
-        /* D7: MEDIUM-width kernels (taps 512/760 — inside the repo's
-           FAST_KERNEL_MAX_TAPS guard but past its roll-free kv-shift bound),
-           the band tools/probe_midwide.py measures for the dispatch
-           crossover. Chunked feeds exercise position carry at these widths;
+        /* D7: MEDIUM-width kernels (taps 512/760), between the narrow
+           ratios and the wide ones. Chunked feeds exercise position carry at these widths;
            the mid-script Adjust re-rates 44100->349 (radius 380) into
            44100->517 (radius 256). Appended AFTER the earlier scripts so
            their shared-PRNG streams stay byte-identical. */
